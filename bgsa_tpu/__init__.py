@@ -1,4 +1,4 @@
-"""bgsa_tpu — TPU-native bit-parallel batch sequence alignment.
+"""bgsa_tpu — bit-parallel batch sequence alignment in JAX.
 
 A from-scratch JAX/Pallas re-design of the capabilities of sdu-hpcl/BGSA:
 Myers bit-vector edit distance (global/semi-global, multi-word), BitPAl

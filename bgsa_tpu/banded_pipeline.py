@@ -13,37 +13,29 @@ import functools
 import numpy as np
 
 from . import pack
-from .pipeline import PipelineConfig, _enable_compilation_cache, run_bucketed
+from .pipeline import PipelineConfig, enable_compilation_cache, run_bucketed
 
 
 class BandedEngine:
     """Compiled banded-verification step (threshold k).
 
     Same surface as pipeline.Engine: ``scores(query_codes, subject_codes)``.
-    Subjects travel nibble-packed; the banded packing (64-bit Peq window +
-    injection stream) runs on the VPU inside the jitted step (the reference
-    burns host cores in its banded handle_reads). Local multi-chip rides the
-    same shard_map path as Engine (subjects sharded, stream packing
-    shard-local) — the reference's banded KNC port drives all devices from
-    one process too (``banded/BGSA_KNC/cal_all.c:134-771``).
+    Subjects travel 2-bit/nibble-packed; the banded packing (the 64-bit Peq
+    window + injection stream) runs on the device inside the jitted step
+    (the reference burns host cores in its banded handle_reads). Local
+    multi-device rides the same shard_map path as Engine (subjects sharded,
+    packing shard-local) — the reference's banded KNC port drives all
+    devices from one process too (``banded/BGSA_KNC/cal_all.c:134-771``).
     """
 
     def __init__(self, threshold: int, config: PipelineConfig, device=None):
         import jax
 
         self._jax = jax
-        _enable_compilation_cache(jax)
+        enable_compilation_cache(jax)
         self.k = threshold
         self.config = config
         self.device = device  # pin to one jax.Device (heterogeneous driver)
-        backend = config.backend
-        if backend == "auto":
-            try:
-                on_tpu = jax.default_backend() == "tpu"
-            except RuntimeError:
-                on_tpu = False
-            backend = "pallas" if on_tpu or config.interpret else "xla"
-        self.backend = backend
         from .pipeline import _local_mesh
 
         self.n_shards, self.mesh = _local_mesh(jax, config)
@@ -51,59 +43,21 @@ class BandedEngine:
         self._exec: dict = {}  # AOT-compiled executables per batch geometry
 
     def _build_step(self, q_len: int, s_len: int, transport: str = "nib"):
-        jax, config, k = self._jax, self.config, self.k
+        jax, k = self._jax, self.k
         import jax.numpy as jnp
 
         from .ops import banded as banded_ops
-        from .ops import banded_packed
 
         unpack = pack.transport_unpack_jax(transport)
-        n_sub = banded_packed.packed_subbands(q_len, s_len, k)
 
         def step_local(qcodes, packed):
+            # Every geometry runs banded_xla on every platform: a Triton
+            # kernel was 27x faster alone but tied end to end, where the
+            # host bounds the run (docs/PERF.md).
             scodes = unpack(packed, s_len)
-            kw = dict(q_len=q_len, s_len=s_len, k=k)
-            if self.backend == "pallas":
-                kw["interpret"] = config.interpret
-                if config.rows_per_block:
-                    kw["rows_per_block"] = config.rows_per_block
-                # interpret mode (tests/debug) caps packed fields at 3: the
-                # XLA CPU simplifier livelocks on >= 5 inlined fields and
-                # crawls (8+ min compiles) on 4 once the packers fuse into
-                # the same module; Mosaic on the chip is unaffected (any
-                # n_sub compiles in seconds — scripts/tpu_parity.py).
-                packed_ok = (n_sub >= 2 and config.banded_packed
-                             and not (config.interpret and n_sub >= 4))
-                if s_len >= q_len and packed_ok:
-                    # packed-field kernel: n_sub subjects per band register
-                    # (identical scores; ~n_sub x fewer vector ops/cell).
-                    # Pad the shard's subject count to the chunk multiple;
-                    # pad rows are PAD_CODE subjects whose scores are
-                    # sliced off before they reach the result writer.
-                    S = scodes.shape[0]
-                    mult = n_sub * banded_packed.LANES
-                    Sp = -(-S // mult) * mult
-                    sc = (jnp.pad(scodes, ((0, Sp - S), (0, 0)),
-                                  constant_values=pack.PAD_CODE)
-                          if Sp != S else scodes)
-                    streams = banded_packed.pack_packed_streams_jax(
-                        sc, k, q_len, n_sub)
-                    s = banded_packed.banded_stream_packed(
-                        streams, qcodes, **kw)[:, :S]
-                elif s_len >= q_len:  # fast path: funnel-shift Eq stream
-                    stream = pack.pack_banded_stream_jax(scodes, k, q_len)
-                    s = banded_ops.banded_stream(stream, qcodes, **kw)
-                elif 2 * k <= 63:  # shorter subjects: dual-stream funnel
-                    streams = pack.pack_banded_streams_jax(scodes, k, q_len)
-                    s = banded_ops.banded_stream_dual(streams, qcodes, **kw)
-                else:  # 2k > 63 with subjects shorter than k: Peq-carry
-                    # (preload k+s_len <= 63 fits; k+min(k,s_len) > 63
-                    # raises in ops.banded._geometry — reference UB there)
-                    args = pack.pack_banded_jax(scodes, k, q_len)
-                    s = banded_ops.banded(*args, qcodes, **kw)
-            else:
-                args = pack.pack_banded_jax(scodes, k, q_len)
-                s = banded_ops.banded_xla(*args, qcodes, **kw)
+            args = pack.pack_banded_jax(scodes, k, q_len)
+            s = banded_ops.banded_xla(*args, qcodes, q_len=q_len, s_len=s_len,
+                                      k=k)
             return s.astype(jnp.int8)
 
         if self.mesh is not None:
@@ -128,10 +82,7 @@ class BandedEngine:
             for sh, dt in pack.transport_specs(transport, rows, s_len, sidecar)
         ]
         payload = specs[0] if len(specs) == 1 else tuple(specs)
-        ex = self._exec[key] = step.lower(qs, payload).compile()
-        from .pipeline import _warm_executable
-
-        _warm_executable(self._jax, ex, (qs,) + tuple(specs))
+        self._exec[key] = step.lower(qs, payload).compile()
 
     def scores_packed(self, query_codes: np.ndarray, transport: str, payload, s_len: int):
         """Score against a transport-packed subject batch (pipeline hot path)."""

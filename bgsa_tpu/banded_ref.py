@@ -2,7 +2,7 @@
 
 A pure-Python bit-level port of ``/root/reference/banded/BGSA_CPU/align_core.c``
 (Hyyro's banded approximate-matching recurrence with batched early
-termination), used as the golden model for the TPU kernel and by tests. Slow
+termination), used as the golden model for the kernels and by tests. Slow
 — one subject at a time with Python ints — but exact.
 
 Key semantics (band fits one word):

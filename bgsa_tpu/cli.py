@@ -74,7 +74,7 @@ def align_main(argv=None) -> int:
                         "float per host, whitespace-separated)")
     p.add_argument("-t", dest="devices", default=None, metavar="SPEC",
                    help="heterogeneous co-compute: '+'-joined jax platforms "
-                        "(e.g. tpu+cpu), one in-process device section per "
+                        "(e.g. gpu+cpu), one in-process device section per "
                         "entry — the reference's -t MICSSE; combine with -R/-D")
     p.add_argument("-n", dest="device_count", type=int, default=None,
                    help="with a single-platform -t: use this many devices of "
@@ -196,13 +196,13 @@ def align_main(argv=None) -> int:
     if args.carry:
         # Loud rejection beats a silent no-op (the carry layout exists on
         # both BitPAl representations; unit-cost schemes run Myers kernels,
-        # whose full-word TPU formulation is already the default).
+        # whose full-word formulation is already the kernel route's).
         if args.threshold is not None or Scoring(
             args.match, args.mismatch, args.gap
         ).is_unit:
             print("error: --carry applies to BitPAl scoring schemes; "
                   "this run selects a Myers/banded kernel (unit-cost or -k), "
-                  "whose full-word formulation is already the TPU default",
+                  "whose full-word formulation is already the GPU default",
                   file=sys.stderr)
             return 1
     cfg_kwargs = {
@@ -246,11 +246,14 @@ def align_main(argv=None) -> int:
         shard = (host_id, n_hosts)
     if args.devices:
         # Accept the reference's own -t spellings (original/BGSA_KNC/
-        # main.c:73-83): MIC = the accelerator alone (a plain run here, on
-        # the default device), MICSSE = accelerator + host CPU co-compute,
-        # SIMPLE/SSE = CPU-only. Mapped to jax platform specs.
-        ref_alias = {"simple": "cpu", "sse": "cpu", "mic": "tpu",
-                     "micsse": "tpu+cpu"}
+        # main.c:73-83): MIC = the accelerator alone, MICSSE = accelerator +
+        # host CPU co-compute, SIMPLE/SSE = CPU-only. Mapped to jax platform
+        # specs, the accelerator being the default platform.
+        import jax
+
+        accel = jax.default_backend()
+        ref_alias = {"simple": "cpu", "sse": "cpu", "mic": accel,
+                     "micsse": f"{accel}+cpu"}
         key = args.devices.strip().lower()
         if key in ref_alias:
             mapped = ref_alias[key]
@@ -277,7 +280,7 @@ def align_main(argv=None) -> int:
         return 1
     if args.device_count is not None:
         if not args.devices or "+" in args.devices:
-            print("error: -n needs a single-platform -t (e.g. -t tpu -n 4)",
+            print("error: -n needs a single-platform -t (e.g. -t gpu -n 4)",
                   file=sys.stderr)
             return 1
         if args.device_count < 1:

@@ -1,10 +1,10 @@
 """Debug printers for bit-vector kernel development.
 
-TPU-native analogue of the reference's lane printers
+Analogue of the reference's lane printers
 (``/root/reference/original/BGSA_KNC/util.c:4-62``: ``print_binary`` /
 ``printf_mm512*``). Host helpers format packed words for eyeballing; the
 kernel-side helper wraps ``pl.debug_print`` so a single probe line works in
-both interpret mode (tests) and compiled Mosaic kernels.
+both interpret mode (tests) and compiled kernels.
 
 Usage inside a Pallas kernel body::
 
@@ -40,7 +40,7 @@ def format_words(words, bits: int = 32, sep: str = " | ") -> str:
 
 
 def format_lanes(arr, max_lanes: int = 8) -> str:
-    """First lanes of a (..., R, 128) tile row, one formatted word per lane
+    """First lanes of a block of subject words, one formatted word per lane
     (reference printf_mm512_i32, util.c:39-49)."""
     flat = np.asarray(arr).reshape(-1)
     shown = ", ".join(format_binary(v) for v in flat[:max_lanes])
@@ -52,8 +52,8 @@ def kprint(fmt: str, *args) -> None:
     """``pl.debug_print`` passthrough for kernel bodies.
 
     Works under ``interpret=True`` (prints eagerly from the Pallas
-    interpreter) and in compiled TPU kernels (scalar values only — Mosaic
-    restriction). Import stays inside so host-only users never pull Pallas.
+    interpreter) and in compiled kernels. Import stays inside so host-only
+    users never pull Pallas.
     """
     from jax.experimental import pallas as pl
 

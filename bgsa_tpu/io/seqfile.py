@@ -12,8 +12,8 @@ Reproduces the reference's bucketing semantics exactly
   ``.info`` file so the converter can drop the pad scores);
 * the query file is loaded whole and mapped to symbol codes.
 
-The reference's V_NUM is 1..16 depending on port; ours is the TPU lane pad
-(default 128). Pad choice does not affect converted output.
+The reference's V_NUM is 1..16 depending on port; ours is a 128-subject
+pad (PipelineConfig.v_num). Pad choice does not affect converted output.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """ctypes loader for the native host-runtime library (native/bgsa_native.cpp).
 
-Builds libbgsa_native.so on first use (g++ -O3 -shared) into a cache dir and
+Builds libbgsa_native.so from the committed source on first use (g++ -O3
+-shared) into ``build/native`` inside the checkout (git-ignored) and
 exposes the fast paths; every caller has a pure-Python fallback, so a missing
 toolchain only costs speed.
 """
@@ -18,8 +19,9 @@ _lock = threading.Lock()
 _lib = None
 _tried = False
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native",
-                    "bgsa_native.cpp")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SRC = os.path.join(_ROOT, "native", "bgsa_native.cpp")
+_BUILD = os.path.join(_ROOT, "build", "native")
 
 
 def _build(so_path: str) -> bool:
@@ -51,12 +53,9 @@ def get_lib():
         _tried = True
         if os.environ.get("BGSA_NO_NATIVE"):
             return None
-        cache = os.path.join(
-            os.path.expanduser("~"), ".cache", "bgsa_tpu", "native"
-        )
-        so_path = os.path.join(cache, "libbgsa_native.so")
+        so_path = os.path.join(_BUILD, "libbgsa_native.so")
         try:
-            os.makedirs(cache, exist_ok=True)
+            os.makedirs(_BUILD, exist_ok=True)
             src_mtime = os.path.getmtime(_SRC)
             if not os.path.exists(so_path) or os.path.getmtime(so_path) < src_mtime:
                 if not _build(so_path):

@@ -1,1 +1,1 @@
-"""Alignment kernels: XLA (portable) and Pallas (TPU) backends."""
+"""Alignment kernels: XLA (portable) and Pallas (GPU, Triton route) backends."""

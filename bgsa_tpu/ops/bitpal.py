@@ -14,7 +14,7 @@ carry), per-column cross-word carries for the run-propagation adds and the
 one-row shifts. ``word_bits=32`` selects the full-word compare-carry layout
 — the unpacked half of the generator's "carry" path
 (``BitPAlGenerator.genKernel:39-64`` x KNCArch ``isCarry``), completing G8's
-six emission paths with TPU answers (the packed half is
+six emission paths (the packed half is
 ``bitpal_packed word_bits=32``; A/B numbers in docs/PERF.md). Requires
 M > I > 2G (the value-class lattice the algorithm assumes;
 schemes.normalize enforces it).
@@ -33,13 +33,8 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from . import blockutil
 
 WORD_BITS = 31
-LANES = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -217,6 +212,13 @@ def _bitpal_column(planes, matches_w, p: BitpalParams,
     return out
 
 
+def popcount(x):
+    """Set bits of a uint32 array as int32. Counted on the int32 bit
+    pattern: the Triton route lowers a 32-bit signed popcount to the
+    hardware instruction but cannot legalize the unsigned one."""
+    return lax.population_count(lax.bitcast_convert_type(x, jnp.int32))
+
+
 def _valid_masks(read_len: int, W: int, word_bits: int = WORD_BITS):
     masks = []
     for w in range(W):
@@ -238,7 +240,7 @@ def _global_score(planes, p: BitpalParams, read_len: int, q_len: int, factor: in
             continue
         cnt = None
         for w in range(W):
-            c = lax.population_count(planes[v][w] & masks[w]).astype(jnp.int32)
+            c = popcount(planes[v][w] & masks[w])
             cnt = c if cnt is None else cnt + c
         score = score + jnp.int32(v) * cnt
     return score * jnp.int32(factor)
@@ -310,100 +312,3 @@ def bitpal_xla(eq, queries, *, match: int, mismatch: int, gap: int, read_len: in
         return _global_score(planes, p, read_len, m, factor, word_bits)
 
     return jax.vmap(one_query)(queries)
-
-
-def _kernel(q_ref, eq_ref, out_ref, *, p, read_len, q_len, factor, semi_global,
-            unroll, word_bits=WORD_BITS):
-    W = eq_ref.shape[1]
-
-    def column(i, carry):
-        c = q_ref[0, 0, i]
-        eq_c = eq_ref[c]
-        planes = {v: [carry[v - p.minv, w] for w in range(W)] for v in p.values}
-        new = _bitpal_column(planes, [eq_c[w] for w in range(W)], p, word_bits)
-        return jnp.stack([jnp.stack(new[v]) for v in p.values])
-
-    tile = (eq_ref.shape[2], eq_ref.shape[3])
-    init = _init_planes(p, tile, W, semi_global, word_bits)
-    carry0 = jnp.stack([jnp.stack(init[v]) for v in p.values])
-
-    # Column unrolling (see myers_pallas): overlaps the next column's Eq load
-    # with compute in the latency-bound serial recurrence.
-    def column_u(i, carry):
-        for u in range(unroll):
-            carry = column(i * unroll + u, carry)
-        return carry
-
-    final = lax.fori_loop(0, q_len // unroll, column_u, carry0)
-    for i in range((q_len // unroll) * unroll, q_len):
-        final = column(i, final)
-    planes = {v: [final[v - p.minv, w] for w in range(W)] for v in p.values}
-    if semi_global:
-        out_ref[0] = _semiglobal_score(planes, p, read_len, q_len, factor, word_bits)
-    else:
-        out_ref[0] = _global_score(planes, p, read_len, q_len, factor, word_bits)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "match", "mismatch", "gap", "read_len", "factor", "semi_global",
-        "rows_per_block", "unroll", "interpret", "word_bits",
-    ),
-)
-def bitpal(eq, queries, *, match: int, mismatch: int, gap: int, read_len: int,
-           factor: int = 1, semi_global: bool = False, rows_per_block: int = 16,
-           unroll: int | None = None, interpret: bool = False,
-           word_bits: int = WORD_BITS):
-    """Pallas TPU backend. S % 128 == 0; returns (Q, S) int32 scores.
-
-    Default rows_per_block is smaller than the Myers kernels': the non-packed
-    state is (M-2G+1) planes x W words, and must fit VMEM alongside Eq.
-    """
-    p = BitpalParams(match, mismatch, gap)
-    C, W, S = eq.shape
-    Q, m = queries.shape
-    if unroll is None:  # tuned defaults; 1 in interpret mode (tests crawl
-        # otherwise). The 32-bit layout wants deeper unrolling (u20 +1.8%
-        # over u10 — scripts/exp_bitpal_unpacked_tune.py); 31-bit keeps its
-        # round-1-tuned u10.
-        unroll = 1 if interpret else (20 if word_bits == 32 else 10)
-    if S % LANES:
-        raise ValueError(f"subject count {S} must be a multiple of {LANES}")
-    rows = S // LANES
-    nvals = p.maxv - p.minv + 1
-    # State planes + double-buffered Eq blocks under ~10 MB of scoped VMEM.
-    budget_rows = max((10 << 20) // ((nvals + 2 * C) * W * LANES * 4), 1)
-    hard_rows = blockutil.HARD_VMEM_BYTES // ((nvals + 2 * C) * W * LANES * 4)
-    if blockutil.vmem_floor_exceeded(rows, hard_rows):
-        # Even an 8-row block exceeds scoped VMEM at this word count — run
-        # the XLA twin (any word_num, same scores).
-        return bitpal_xla(
-            eq, queries, match=match, mismatch=mismatch, gap=gap,
-            read_len=read_len, factor=factor, semi_global=semi_global,
-            word_bits=word_bits,
-        )
-    r, rows_p = blockutil.choose_rows(rows, rows_per_block, budget_rows)
-    nb = rows_p // r
-    eq4 = blockutil.pad_rows(eq.reshape(C, W, rows, LANES), 2, rows_p)
-
-    out = pl.pallas_call(
-        functools.partial(
-            _kernel, p=p, read_len=read_len, q_len=m, factor=factor,
-            semi_global=semi_global, unroll=max(1, min(unroll, m)),
-            word_bits=word_bits,
-        ),
-        grid=(nb, Q),
-        in_specs=[
-            pl.BlockSpec((1, 1, m), lambda b, q: (q, 0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((C, W, r, LANES), lambda b, q: (0, 0, b, 0)),
-        ],
-        out_specs=pl.BlockSpec((1, r, LANES), lambda b, q: (q, b, 0)),
-        out_shape=jax.ShapeDtypeStruct((Q, rows_p, LANES), jnp.int32),
-        cost_estimate=pl.CostEstimate(
-            flops=20 * nvals * Q * m * W * S, bytes_accessed=eq.size * 4 + Q * S * 4,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(jnp.asarray(queries, jnp.int32)[:, None, :], eq4)
-    return out[:, :rows].reshape(Q, S)

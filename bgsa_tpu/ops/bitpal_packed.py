@@ -22,11 +22,15 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from . import blockutil
-from .bitpal import BitpalParams, WORD_BITS, LANES, _valid_masks
+from .bitpal import BitpalParams, WORD_BITS, _valid_masks, popcount
+
+# Largest state (bit planes x words) the kernel keeps per thread: 5 planes
+# x 33 words, (2,-3,-5) at 1000 bp, the longest subject measured on the
+# card, where the kernel still ran at its 500 bp rate and 47x the XLA twin
+# (docs/PERF.md). Larger states take the twin.
+MAX_STATE = 165
 
 
 def packed_supported(p: BitpalParams) -> bool:
@@ -46,7 +50,7 @@ def _packed_column(state_w, matches_w, p: BitpalParams, nbits: int,
     """One query column over all words. state_w: list per word of lists of
     nbits plane arrays. Returns new state (same structure).
 
-    ``word_bits=32`` selects the full-word compare-carry variant — the TPU
+    ``word_bits=32`` selects the full-word compare-carry variant — the
     analogue of the reference's KNC hardware add-with-carry kernel
     (``original/BGSA_KNC/align_core.c:1153`` ``_mm512_adc_epi32``; generator
     path ``AVX512Intrinsics.java:92-94``): all 32 bits hold subject rows
@@ -285,7 +289,7 @@ def _packed_global_score(state_w, p: BitpalParams, nbits: int, read_len,
     score = score.astype(jnp.int32)
     for w, planes in enumerate(state_w):
         for i in range(nbits):
-            c = lax.population_count(planes[i] & masks[w]).astype(jnp.int32)
+            c = popcount(planes[i] & masks[w])
             weight = (1 << i) if i == nbits - 1 else -(1 << i)
             score = score + jnp.int32(weight) * c
     return score * jnp.int32(factor)
@@ -345,93 +349,50 @@ def bitpal_packed_xla(eq, queries, *, match, mismatch, gap, read_len,
 
 
 def _kernel(q_ref, eq_ref, out_ref, *, p, nbits, read_len, q_len, factor,
-            semi_global, unroll, word_bits=WORD_BITS):
+            semi_global, word_bits=WORD_BITS):
     W = eq_ref.shape[1]
-    tile = (eq_ref.shape[2], eq_ref.shape[3])
+    B = out_ref.shape[-1]
 
-    def column(i, carry):
-        c = q_ref[0, 0, i]
-        eq_c = eq_ref[c]
-        state_w = [[carry[w, b] for b in range(nbits)] for w in range(W)]
-        new = _packed_column(state_w, [eq_c[w] for w in range(W)], p, nbits,
-                             word_bits)
-        return jnp.stack([jnp.stack(ws) for ws in new])
+    def column(i, state_w):
+        c = q_ref[i]
+        return _packed_column(state_w, [eq_ref[c, w, :] for w in range(W)],
+                              p, nbits, word_bits)
 
-    init = _packed_init(p, nbits, tile, W, semi_global, word_bits)
-    carry0 = jnp.stack([jnp.stack(ws) for ws in init])
-
-    def column_u(i, carry):
-        for u in range(unroll):
-            carry = column(i * unroll + u, carry)
-        return carry
-
-    final = lax.fori_loop(0, q_len // unroll, column_u, carry0)
-    for i in range((q_len // unroll) * unroll, q_len):
-        final = column(i, final)
-    state_w = [[final[w, b] for b in range(nbits)] for w in range(W)]
-    if semi_global:
-        out_ref[0] = _packed_semiglobal_score(state_w, p, nbits, read_len,
-                                              q_len, factor, word_bits)
-    else:
-        out_ref[0] = _packed_global_score(state_w, p, nbits, read_len, q_len,
-                                          factor, word_bits)
+    init = _packed_init(p, nbits, (B,), W, semi_global, word_bits)
+    state_w = lax.fori_loop(0, q_len, column, init)
+    score = _packed_semiglobal_score if semi_global else _packed_global_score
+    out_ref[...] = score(state_w, p, nbits, read_len, q_len, factor, word_bits)
 
 
 @functools.partial(
     jax.jit,
     static_argnames=(
         "match", "mismatch", "gap", "read_len", "factor", "semi_global",
-        "rows_per_block", "unroll", "interpret", "word_bits",
+        "interpret", "word_bits",
     ),
 )
 def bitpal_packed(eq, queries, *, match, mismatch, gap, read_len, factor=1,
-                  semi_global=False, rows_per_block: int = 8,
-                  unroll: int | None = None, interpret: bool = False,
+                  semi_global=False, interpret: bool = False,
                   word_bits: int = WORD_BITS):
-    """Pallas TPU backend; S % 128 == 0 -> (Q, S) int32 scores."""
+    """Pallas kernel (Triton route) -> (Q, S) int32 scores. Past MAX_STATE
+    state words per thread (the largest state measured on the card) the
+    XLA twin runs instead (any word count, same scores)."""
     p = BitpalParams(match, mismatch, gap)
     if not packed_supported(p):
         raise ValueError(f"packed BitPAl requires M <= 2I - 2G + 1, got {p}")
     nbits = _bits_num(p)
-    C, W, S = eq.shape
+    W = eq.shape[1]
     Q, m = queries.shape
-    if unroll is None:  # tuned default; 1 in interpret mode (tests crawl otherwise)
-        unroll = 1 if interpret else 20
-    if S % LANES:
-        raise ValueError(f"subject count {S} must be a multiple of {LANES}")
-    rows = S // LANES
-    # State planes + double-buffered Eq blocks under ~10 MB of scoped VMEM.
-    budget_rows = max((10 << 20) // ((nbits + 2 * C) * W * LANES * 4), 1)
-    hard_rows = blockutil.HARD_VMEM_BYTES // ((nbits + 2 * C) * W * LANES * 4)
-    if blockutil.vmem_floor_exceeded(rows, hard_rows):
-        # Subjects past ~7.9 kbp for (2,-3,-5): even an 8-row block exceeds
-        # scoped VMEM — run the XLA twin (any word_num, same scores).
+    if nbits * W > MAX_STATE:
         return bitpal_packed_xla(
             eq, queries, match=match, mismatch=mismatch, gap=gap,
             read_len=read_len, factor=factor, semi_global=semi_global,
             word_bits=word_bits,
         )
-    r, rows_p = blockutil.choose_rows(rows, rows_per_block, budget_rows)
-    nb = rows_p // r
-    eq4 = blockutil.pad_rows(eq.reshape(C, W, rows, LANES), 2, rows_p)
-
-    out = pl.pallas_call(
+    return blockutil.subject_block_call(
         functools.partial(
-            _kernel, p=p, nbits=nbits, read_len=read_len, q_len=m, factor=factor,
-            semi_global=semi_global, unroll=max(1, min(unroll, m)),
-            word_bits=word_bits,
+            _kernel, p=p, nbits=nbits, read_len=read_len, q_len=m,
+            factor=factor, semi_global=semi_global, word_bits=word_bits,
         ),
-        grid=(nb, Q),
-        in_specs=[
-            pl.BlockSpec((1, 1, m), lambda b, q: (q, 0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((C, W, r, LANES), lambda b, q: (0, 0, b, 0)),
-        ],
-        out_specs=pl.BlockSpec((1, r, LANES), lambda b, q: (q, b, 0)),
-        out_shape=jax.ShapeDtypeStruct((Q, rows_p, LANES), jnp.int32),
-        cost_estimate=pl.CostEstimate(
-            flops=15 * nbits * Q * m * W * S, bytes_accessed=eq.size * 4 + Q * S * 4,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(jnp.asarray(queries, jnp.int32)[:, None, :], eq4)
-    return out[:, :rows].reshape(Q, S)
+        queries, eq, interpret=interpret, name="bitpal_packed",
+    )

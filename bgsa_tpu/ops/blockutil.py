@@ -1,69 +1,76 @@
-"""Grid-block sizing shared by the Pallas kernel wrappers.
+"""Subject-block launch shared by the Pallas kernels (Triton route).
 
-Mosaic requires the sublane (second-to-last) block dimension to be a multiple
-of 8 or equal to the array dimension. Subject counts are only guaranteed to
-be multiples of 128 (one lane row), so instead of searching for divisors of
-the row count (which can be as bad as 2 — e.g. 5942 rows for a 760k-subject
-bucket), blocks are 8-sublane-aligned and the row axis is zero-padded up to a
-block multiple; pad scores are computed and discarded.
+Every kernel has the standard GPU shape of a bit-parallel aligner: a grid
+over (subject blocks, queries); each program scores one query against
+``block`` subjects laid across its threads, keeps that block's bit-vector
+state in registers (a Python list of ``(block,)`` uint32 vectors) for the
+whole query, loops over query characters inside the kernel, and reads
+only the Eq words of each column from memory. The subject axis is the
+last axis of every operand and is zero-padded to a block multiple; pad
+scores are computed and sliced off.
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plgpu
+
+# Subjects per program: one per thread of a 4-warp block. Triton blocks
+# must be powers of two.
+BLOCK = 128
+NUM_WARPS = 4
+NUM_STAGES = 1
 
 
-def choose_rows(rows: int, *limits: int) -> tuple[int, int]:
-    """(rows_per_block, padded_rows) with the Mosaic sublane constraint.
-
-    Blocks are floored at 8 sublane rows (or the whole array when it is
-    smaller) — a VMEM budget below that cannot be honored by shrinking the
-    row axis, so callers' budget formulas must treat 8 rows as the minimum
-    block (their per-word VMEM cost times 8 is the floor; see the
-    ``budget_rows = max(..., 1)`` expressions in the kernel wrappers).
-    """
-    r = min(rows, *limits)
-    if r <= 0:
-        r = 1
-    if r >= rows:
-        return rows, rows
-    r = max(r - r % 8, 8)
-    if r >= rows:
-        # The 8-row floor reached the whole array: a full-dimension block
-        # also satisfies Mosaic and avoids padding past the array.
-        return rows, rows
-    padded = -(-rows // r) * r
-    return r, padded
+def padded_subjects(s: int, block: int = BLOCK) -> int:
+    """Subject count rounded up to a whole number of blocks."""
+    return -(-s // block) * block
 
 
-# Scoped-VMEM hard ceiling for the routing decision. The kernels budget
-# blocks against a soft ~10 MB (headroom for the pipeline's double
-# buffering), but a block floored at 8 sublane rows may exceed that budget
-# and still compile — the real Mosaic failure is at ~16 MB (measured: r32 at
-# W=94 = 16.78 MB "failed to compile", myers_semiglobal.py). Routing on the
-# soft budget would needlessly demote W ~214-340 geometries that Pallas
-# handles; 15 MB keeps a safety margin under the measured ceiling.
-HARD_VMEM_BYTES = 15 << 20
-
-
-def vmem_floor_exceeded(rows: int, hard_rows: int) -> bool:
-    """True when even the smallest legal block exceeds scoped VMEM.
-
-    Blocks cannot go below 8 sublane rows (or the whole array when smaller),
-    so ``hard_rows`` (= HARD_VMEM_BYTES / bytes-per-row) under that floor
-    means the Pallas kernel would die inside Mosaic with no friendly error —
-    the reference kernels take any ``word_num``
-    (original/BGSA_SSE/cal_sse.c:253-257), so wrappers route this geometry
-    to their XLA twin instead (same scores, any length).
-    """
-    return hard_rows < min(rows, 8)
-
-
-def pad_rows(arr, axis: int, padded: int):
-    """Zero-pad ``arr`` along ``axis`` up to ``padded`` rows."""
-    rows = arr.shape[axis]
-    if rows == padded:
+def pad_subjects(arr, block: int = BLOCK):
+    """Zero-pad ``arr``'s last (subject) axis up to a block multiple."""
+    s = arr.shape[-1]
+    sp = padded_subjects(s, block)
+    if sp == s:
         return arr
-    widths = [(0, 0)] * arr.ndim
-    widths[axis] = (0, padded - rows)
-    return jnp.pad(arr, widths)
+    return jnp.pad(arr, [(0, 0)] * (arr.ndim - 1) + [(0, sp - s)])
+
+
+def subject_block_call(kernel, queries, data, *, interpret: bool = False,
+                       name: str | None = None):
+    """Launch ``kernel(q_ref, data_ref, out_ref)`` over (subject blocks,
+    queries).
+
+    queries: (Q, m) codes; ``q_ref`` is this program's (m,) query row, read
+    one scalar per column. data: (..., S) uint32 with subjects last;
+    ``data_ref`` is the (..., block) slice of this program's block.
+    ``out_ref`` is (block,) int32. Returns (Q, S) int32. Block size, warps
+    and pipeline stages are the module's BLOCK, NUM_WARPS and NUM_STAGES.
+    """
+    block = BLOCK
+    if block & (block - 1):
+        raise ValueError(f"block {block} must be a power of two")
+    Q, m = queries.shape
+    S = data.shape[-1]
+    data = pad_subjects(data, block)
+    lead = data.shape[:-1]
+    nb = data.shape[-1] // block
+    zeros = (0,) * len(lead)
+    out = pl.pallas_call(
+        kernel,
+        grid=(nb, Q),
+        in_specs=[
+            pl.BlockSpec((None, m), lambda b, q: (q, 0)),
+            pl.BlockSpec(lead + (block,), lambda b, q: zeros + (b,)),
+        ],
+        out_specs=pl.BlockSpec((None, block), lambda b, q: (q, b)),
+        out_shape=jax.ShapeDtypeStruct((Q, nb * block), jnp.int32),
+        compiler_params=plgpu.CompilerParams(
+            num_warps=NUM_WARPS, num_stages=NUM_STAGES),
+        backend="triton",
+        interpret=interpret,
+        name=name,
+    )(jnp.asarray(queries, jnp.int32), data)
+    return out[..., :S]

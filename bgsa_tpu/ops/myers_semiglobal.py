@@ -7,11 +7,10 @@ between words (here as two 0/1 bit planes; the reference packs h in two's
 complement). Semi-global: column boundary h=0 leaves the query-side start
 free and the running last-row score is min-tracked (D[i][0] = i, D[0][j] = 0,
 result = min_j D[n][j]). Global (``is_global=True``): boundary h=+1, final
-last-row score — on TPU this full-word kernel outperforms the 31-bit
-reserved-carry global kernel (ops/myers_pallas.py) by ~6-12%, so the engine
-uses it for both Myers modes.
+last-row score; the engine's kernel route uses it for both Myers modes.
 
-Both backends (XLA scan, Pallas TPU) share the column body.
+Both backends (XLA scan, Pallas kernel on the Triton route) share the
+column body.
 """
 
 from __future__ import annotations
@@ -21,31 +20,34 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from . import blockutil
 
 WORD_BITS = 32  # full words (the reference's full_bits=1 path)
+# Largest word count the kernel takes: 94 words (3000 bp), the longest
+# subject measured on the card, where the kernel still ran at its 150 bp
+# rate and 66x the scan twin (docs/PERF.md). Longer subjects take the twin.
+MAX_WORDS = 94
 
 
 def _column(eq_c, pv, mv, score, min_score, *, read_len, is_global=False):
     """One query-character column over all words.
 
-    eq_c/pv/mv: (W, ...) uint32; score/min_score: (...) int32.
-    Returns updated (pv_list, mv_list, score, min_score).
+    eq_c/pv/mv: (W, ...) uint32 arrays or length-W lists of (...) uint32;
+    score/min_score: (...) int32. Returns updated (pv_list, mv_list, score,
+    min_score).
 
     The horizontal delta h in {-1, 0, +1} is threaded between words as two
     0/1 planes (hp_in = "h == +1", hn_in = "h == -1") instead of the
     reference's packed two's-complement encoding — saves the encode/decode
     ops on the hot chain (~26% fewer ops/word, +12% measured; exact parity).
     """
-    W = eq_c.shape[0]
+    W = len(eq_c)
     one = jnp.uint32(1)
     last_shift = (read_len - 1) % WORD_BITS
 
-    hp_in = jnp.full(eq_c.shape[1:], jnp.uint32(1 if is_global else 0))
-    hn_in = jnp.zeros(eq_c.shape[1:], jnp.uint32)
+    hp_in = jnp.full(eq_c[0].shape, jnp.uint32(1 if is_global else 0))
+    hn_in = jnp.zeros(eq_c[0].shape, jnp.uint32)
     new_pv, new_mv = [], []
     for j in range(W):
         pvj, mvj = pv[j], mv[j]
@@ -79,9 +81,9 @@ def _column_scan(eq_c, pv, mv, score, min_score, *, read_len, is_global=False):
     """_column with the word loop as a lax.scan (same math, stacked state).
 
     Keeps the compiled body O(1) in W for the long-subject geometries the
-    Pallas wrapper routes here (W > ~340 exceeds the VMEM floor); the
-    Python loop's unrolled jaxpr made those compiles take minutes. Used for
-    W > 64; bit-identical to the loop (tests/test_round4_fixes.py).
+    kernel wrapper routes here (W > MAX_WORDS); the Python loop's unrolled
+    jaxpr made those compiles take minutes. Used for W > 64; bit-identical
+    to the loop (tests/test_round4_fixes.py).
     """
     W = eq_c.shape[0]
     one = jnp.uint32(1)
@@ -149,98 +151,45 @@ def myers_semiglobal_xla(eq, queries, *, read_len: int, factor: int = -1, is_glo
     return jax.vmap(one_query)(queries)
 
 
-def _kernel(q_ref, eq_ref, out_ref, *, read_len, factor, q_len, is_global, unroll):
-    W, R, L = eq_ref.shape[1], eq_ref.shape[2], eq_ref.shape[3]
-    tile = (R, L)
+def _kernel(q_ref, eq_ref, out_ref, *, read_len, factor, q_len, is_global):
+    W = eq_ref.shape[1]
+    B = out_ref.shape[-1]
 
     def column(i, state):
-        pv, mv, score = state[:3]
-        mins = None if is_global else state[3]
-        c = q_ref[0, 0, i]
-        eq_c = eq_ref[c]
-        npv, nmv, score, mins = _column(
+        pv, mv, score, mins = state
+        c = q_ref[i]
+        eq_c = [eq_ref[c, w, :] for w in range(W)]
+        return _column(
             eq_c, pv, mv, score, mins, read_len=read_len, is_global=is_global
         )
-        out = (jnp.stack(npv), jnp.stack(nmv), score)
-        return out if is_global else out + (mins,)
 
-    pv0 = jnp.full((W,) + tile, jnp.uint32(0xFFFFFFFF))
-    mv0 = jnp.zeros((W,) + tile, jnp.uint32)
-    score0 = jnp.full(tile, read_len, jnp.int32)
-    state = (pv0, mv0, score0) if is_global else (pv0, mv0, score0, score0)
-
-    # Same column-unrolling as myers_pallas (see docs/PERF.md).
-    def column_u(i, state):
-        for u in range(unroll):
-            state = column(i * unroll + u, state)
-        return state
-
-    state = lax.fori_loop(0, q_len // unroll, column_u, state)
-    for i in range((q_len // unroll) * unroll, q_len):
-        state = column(i, state)
-    result = state[2] if is_global else state[3]
-    out_ref[0] = result * jnp.int32(factor)
+    pv0 = [jnp.full((B,), jnp.uint32(0xFFFFFFFF)) for _ in range(W)]
+    mv0 = [jnp.zeros((B,), jnp.uint32) for _ in range(W)]
+    score0 = jnp.full((B,), read_len, jnp.int32)
+    state = (pv0, mv0, score0, None if is_global else score0)
+    _, _, score, mins = lax.fori_loop(0, q_len, column, state)
+    out_ref[...] = (score if is_global else mins) * jnp.int32(factor)
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=(
-        "read_len", "factor", "rows_per_block", "unroll", "interpret", "is_global"
-    ),
+    jax.jit, static_argnames=("read_len", "factor", "interpret", "is_global")
 )
-def myers_semiglobal(
-    eq,
-    queries,
-    *,
-    read_len: int,
-    factor: int = -1,
-    rows_per_block: int = 16,
-    unroll: int | None = None,
-    interpret: bool = False,
-    is_global: bool = False,
-):
-    """Pallas TPU backend. eq (5, W, S) uint32 (32-bit packing), S % 128 == 0."""
-    C, W, S = eq.shape
+def myers_semiglobal(eq, queries, *, read_len: int, factor: int = -1,
+                     interpret: bool = False, is_global: bool = False):
+    """Pallas kernel (Triton route). eq (5, W, S) uint32 (32-bit packing)
+    -> (Q, S) int32. Past MAX_WORDS words (the longest subject measured
+    on the card) the scan twin runs instead (any word count, same
+    scores)."""
+    W = eq.shape[1]
     Q, m = queries.shape
-    if unroll is None:  # tuned default; 1 in interpret mode (tests crawl otherwise)
-        # u30 edges u20 by +0.5-1.4% at every length 120-960bp under honest
-        # in-jit-chain timing (interleaved medians on v5e, round 3; the old
-        # "u30 -4.6% at 500bp" was measured through the ~25 ms dispatch floor)
-        unroll = 1 if interpret else 30
-    LANES = 128
-    if S % LANES:
-        raise ValueError(f"subject count {S} must be a multiple of {LANES}")
-    rows = S // LANES
-    # Eq blocks are double-buffered by the Pallas pipeline (2*C), plus VP/VN
-    # state (2), against the ~16 MB scoped-VMEM stack (r32 at W=94 measured
-    # 16.78 MB and failed to compile before this accounting).
-    budget_rows = max((10 << 20) // ((2 * C + 2) * W * LANES * 4), 1)
-    hard_rows = blockutil.HARD_VMEM_BYTES // ((2 * C + 2) * W * LANES * 4)
-    if blockutil.vmem_floor_exceeded(rows, hard_rows):
-        # Subjects past ~10.2 kbp (W > 320): even an 8-row block exceeds
-        # scoped VMEM, so run the scan twin — any word_num, same scores.
+    if W > MAX_WORDS:
         return myers_semiglobal_xla(
             eq, queries, read_len=read_len, factor=factor, is_global=is_global
         )
-    r, rows_p = blockutil.choose_rows(rows, rows_per_block, budget_rows)
-    nb = rows_p // r
-    eq4 = blockutil.pad_rows(eq.reshape(C, W, rows, LANES), 2, rows_p)
-
-    out = pl.pallas_call(
+    return blockutil.subject_block_call(
         functools.partial(
-            _kernel, read_len=read_len, factor=factor, q_len=m, is_global=is_global,
-            unroll=max(1, min(unroll, m)),
+            _kernel, read_len=read_len, factor=factor, q_len=m,
+            is_global=is_global,
         ),
-        grid=(nb, Q),
-        in_specs=[
-            pl.BlockSpec((1, 1, m), lambda b, q: (q, 0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((C, W, r, LANES), lambda b, q: (0, 0, b, 0)),
-        ],
-        out_specs=pl.BlockSpec((1, r, LANES), lambda b, q: (q, b, 0)),
-        out_shape=jax.ShapeDtypeStruct((Q, rows_p, LANES), jnp.int32),
-        cost_estimate=pl.CostEstimate(
-            flops=30 * Q * m * W * S, bytes_accessed=eq.size * 4 + Q * S * 4, transcendentals=0
-        ),
-        interpret=interpret,
-    )(queries.astype(jnp.int32)[:, None, :], eq4)
-    return out[:, :rows].reshape(Q, S)
+        queries, eq, interpret=interpret, name="myers_fullword",
+    )

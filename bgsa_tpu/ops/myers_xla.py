@@ -1,6 +1,6 @@
 """Myers bit-vector edit distance as pure XLA (jnp/lax) ops.
 
-This is the portable backend: the same recurrence the Pallas TPU kernel runs,
+This is the portable backend: the same recurrence the Pallas kernels run,
 expressed as a `lax.scan` over query characters so it compiles on any JAX
 backend. Semantics follow the reference's generated reserved-carry multiword
 kernel (``/root/reference/original/BGSA_CPU/align_core.c:19-148``): 31 usable
@@ -25,9 +25,9 @@ WORD_BITS = 31  # usable bits per uint32 word (top bit reserved for the carry)
 def _myers_column_scan(eq_c, vp, vn, score, maskh, word_bits):
     """_myers_column with the word loop as a lax.scan (same math).
 
-    The Python word loop unrolls ~10 ops per word into the jaxpr; past the
-    long-subject envelope (W > ~340, where the Pallas wrappers route here)
-    that made XLA compile times balloon to minutes. The scan keeps the
+    The Python word loop unrolls ~10 ops per word into the jaxpr; for long
+    subjects (hundreds of words) that made XLA compile times balloon to
+    minutes. The scan keeps the
     compiled body O(1) in W. Used for W > 64; bit-identical to the loop
     (tests/test_round4_fixes.py asserts equality across the dispatch
     boundary).

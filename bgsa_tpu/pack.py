@@ -10,7 +10,7 @@ vectorized (NumPy on host or JAX on device) instead of an OpenMP char loop.
 
 Layouts:
   * functional API: ``eq[c, w, s]`` — character plane, word index, subject.
-  * TPU kernels view the subject axis as ``(rows, 128)`` lanes.
+  * the kernels take the subject axis in blocks of ``ops.blockutil.BLOCK``.
 """
 
 from __future__ import annotations
@@ -329,95 +329,6 @@ def pack_banded_jax(codes, threshold: int, query_len: int):
     else:
         inj = jnp.zeros((CHAR_NUM, W, S), jnp.uint32)
     return lo, hi, inj
-
-
-def pack_banded_stream_jax(codes, threshold: int, query_len: int):
-    """Banded Eq as one flat bit-stream per character (device-side).
-
-    The banded kernel's 64-bit Eq window at column t equals bits [t, t+63]
-    of a static stream, because the window evolves by "shift right one, OR
-    in static bits at fixed offsets": the preload places subject[i] at
-    stream position k+1+i (the reference's pre-shifted word 0), and the
-    injection schedule places subject[k+t] at position band_down+1+t
-    (band_down = 2k + s_len - q_len). The two ranges coincide only for
-    s_len == q_len; in general the stream is the OR of both plane sets.
-    Packing it once lets the kernel *load* each column's window with a
-    funnel shift instead of carrying and shifting five Peq planes.
-
-    Returns (CHAR_NUM, W, S) uint32 with two words of zero padding after the
-    stream end (funnel overrun).
-    """
-    import jax.numpy as jnp
-
-    codes = jnp.atleast_2d(jnp.asarray(codes, jnp.int32))
-    S, L = codes.shape
-    k, m = threshold, query_len
-    h = k + L - m
-    band_down = k + h
-    nA = min(k, L)
-    nB = min(max(m - k, 0), max(L - k, 0))
-    total = max(k + 1 + nA, band_down + 1 + nB)
-    W = -(-total // 32) + 2  # + funnel overrun
-
-    def pack_at(offset, chunk):
-        lead = jnp.full((S, offset), PAD_CODE, jnp.int32)
-        eq = pack_eq_jax(jnp.concatenate([lead, chunk], axis=1), 32)
-        padw = W - eq.shape[1]
-        if padw > 0:
-            eq = jnp.concatenate(
-                [eq, jnp.zeros((CHAR_NUM, padw, S), jnp.uint32)], axis=1
-            )
-        return eq
-
-    stream = pack_at(k + 1, codes[:, :nA])
-    if nB:
-        stream = stream | pack_at(band_down + 1, codes[:, k : k + nB])
-    return stream
-
-
-def pack_banded_streams_jax(codes, threshold: int, query_len: int):
-    """Dual banded Eq bit-streams for ``s_len < q_len`` geometries.
-
-    When ``h = k + s_len - q_len < k``, the single flat stream of
-    pack_banded_stream_jax is unsound: the first ``k - h`` injections land at
-    stream positions ``[band_down+1, 2k]`` that also carry preload bits, and
-    the two contents are consumed at different columns. Superposition of the
-    register evolution (shift-right + OR static bits on a fixed schedule)
-    still holds per source plane, so the kernel loads two windows instead:
-    A (preload, present from column 0) and B (injections, present only at
-    window heights ``<= band_down``)::
-
-        register(t, j) = A[t + j] | (B[t + j] & (j <= band_down))
-
-    Returns (2, CHAR_NUM, W, S) uint32 with funnel-overrun zero padding.
-    """
-    import jax.numpy as jnp
-
-    codes = jnp.atleast_2d(jnp.asarray(codes, jnp.int32))
-    S, L = codes.shape
-    k, m = threshold, query_len
-    band_down = 2 * k + L - m  # k + h
-    nA = min(k, L)
-    nB = min(max(m - k, 0), max(L - k, 0))
-    total = max(k + 1 + nA, band_down + 1 + nB, 1)
-    W = -(-total // 32) + 2  # + funnel overrun
-
-    def pack_at(offset, chunk):
-        if chunk.shape[1] == 0:
-            return jnp.zeros((CHAR_NUM, W, S), jnp.uint32)
-        lead = jnp.full((S, offset), PAD_CODE, jnp.int32)
-        eq = pack_eq_jax(jnp.concatenate([lead, chunk], axis=1), 32)
-        padw = W - eq.shape[1]
-        if padw > 0:
-            eq = jnp.concatenate(
-                [eq, jnp.zeros((CHAR_NUM, padw, S), jnp.uint32)], axis=1
-            )
-        return eq
-
-    return jnp.stack([
-        pack_at(k + 1, codes[:, :nA]),
-        pack_at(band_down + 1, codes[:, k : k + nB]),
-    ])
 
 
 def pack_banded(codes: np.ndarray, threshold: int, query_len: int,

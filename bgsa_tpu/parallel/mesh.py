@@ -1,6 +1,6 @@
 """Device-mesh sharding of the batch scorer.
 
-TPU-native replacement for the reference's device-level parallelism
+Replacement for the reference's device-level parallelism
 (``/root/reference/original/BGSA_KNC/cal_all.c:136-769``): there, one host
 splits each subject bucket across CPU+N Xeon Phis by a compute ratio and
 re-broadcasts the queries to every device per offload. Here the same
@@ -41,42 +41,26 @@ def myers_global_sharded(
     read_len: int,
     word_bits: int = 31,
     factor: int = -1,
-    backend: str = "xla",
-    rows_per_block: int = 128,
-    interpret: bool = False,
     merge: bool = False,
 ):
     """Myers scores with subjects (and optionally queries) sharded over ``mesh``.
 
     Args:
-      eq: (5, W, S) uint32; S divisible by the subject-axis size (x128 for pallas).
+      eq: (5, W, S) uint32; S divisible by the subject-axis size.
       queries: (Q, m) int32; Q divisible by the query-axis size.
       merge: if True, all-gather so every device holds the full (Q, S) scores
-        (the reference's host-side result gather, but over ICI).
+        (the reference's host-side result gather, over the device links).
 
     Returns:
       (Q, S) int32 scores — sharded over the mesh unless ``merge``.
     """
 
     def local(eq_shard, q_shard):
-        if backend == "pallas":
-            from ..ops import myers_pallas
+        from ..ops import myers_xla
 
-            s = myers_pallas.myers_global(
-                eq_shard,
-                q_shard,
-                read_len=read_len,
-                word_bits=word_bits,
-                factor=factor,
-                rows_per_block=rows_per_block,
-                interpret=interpret,
-            )
-        else:
-            from ..ops import myers_xla
-
-            s = myers_xla.myers_global(
-                eq_shard, q_shard, read_len=read_len, word_bits=word_bits, factor=factor
-            )
+        s = myers_xla.myers_global(
+            eq_shard, q_shard, read_len=read_len, word_bits=word_bits, factor=factor
+        )
         if merge:
             s = jax.lax.all_gather(s, SUBJECT_AXIS, axis=1, tiled=True)
             s = jax.lax.all_gather(s, QUERY_AXIS, axis=0, tiled=True)

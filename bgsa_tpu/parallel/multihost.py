@@ -7,7 +7,7 @@ per-device counts in the ``.info`` manifest (``original/BGSA_KNC/cal_all.c``,
 multi-host runtime play the "devices" role — each host scores a contiguous,
 lane-aligned slice of every bucket and writes its own shard file; the merge
 step interleaves the shards into the reference's exact blocked layout with
-``total_device_number = n_hosts``. On homogeneous TPU hosts the even split
+``total_device_number = n_hosts``. On homogeneous hosts the even split
 replaces the reference's measured-ratio balancer (R11) — a ratios argument
 is still accepted for heterogeneous slices.
 
@@ -378,10 +378,10 @@ def read_bucket_times(sync_dir: str, bucket: int, n_hosts: int,
     ratio schedule bit-identical on every host.
 
     A peer that has announced itself (its hello file exists — write_hello)
-    gets ``grace_factor`` times longer: remote-TPU compile episodes of many
-    minutes legitimately delay the first bucket's publish (one measured
-    752 s, docs/PERF.md), and killing a healthy run as a "dead peer" is
-    worse than waiting. A peer with no hello file never launched — that
+    gets ``grace_factor`` times longer: a long first compile legitimately
+    delays the first bucket's publish, and killing a healthy run as a
+    "dead peer" is worse than waiting. A peer with no hello file never
+    launched — that
     fails at the base ``timeout``.
     """
     import os
@@ -435,8 +435,8 @@ class DynamicBalancer:
     traces from a harness around the verbatim reference function with the
     driver's zero-initialized history and ``time_index++``-per-call semantics
     (``cal_all.c:971-980,1312,1332``). Even splits are optimal on homogeneous
-    TPU slices — this exists for heterogeneous deployments (mixed chip
-    generations, or chips sharing hosts with other work).
+    devices — this exists for heterogeneous deployments (mixed device
+    generations, or devices sharing hosts with other work).
     """
 
     def __init__(self, n_hosts: int, initial_ratios=None):

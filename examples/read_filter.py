@@ -4,7 +4,7 @@
    one kernel launch — most reads early-exit.
 2. Survivors get exact unit-cost scores with the full Myers kernel.
 
-Run: python examples/read_filter.py   (CPU or TPU; TPU compiles ~1 min)
+Run: python examples/read_filter.py   (CPU or GPU)
 """
 
 import numpy as np

@@ -2,7 +2,7 @@
 //
 // The reference implements its whole host runtime in C (file I/O, packing,
 // result conversion — e.g. original/BGSA_CPU/convert.c:167-277, global.c:25-70).
-// Our TPU compute path is JAX/Pallas; this library provides C++ equivalents
+// Our device compute path is JAX/Pallas; this library provides C++ equivalents
 // for the host-side paths that are hot at production scale and slow in
 // Python: blocked-result-to-text conversion and banded Peq packing.
 //

@@ -29,8 +29,6 @@ if "host_platform_device_count" not in flags:
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/bgsa_test_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)
 
 from bgsa_tpu import cli
 from bgsa_tpu.io import seqfile

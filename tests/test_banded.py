@@ -20,7 +20,20 @@ def make_case(rng, Q, m, S, n, k):
     return q, s
 
 
-@pytest.mark.parametrize("m,n,k", [(100, 100, 4), (150, 150, 8), (40, 50, 12), (150, 155, 20)])
+@pytest.mark.parametrize("m,n,k", [
+    (100, 100, 4), (150, 150, 8), (40, 50, 12), (150, 155, 20),
+    # the read-filter geometries
+    (150, 158, 8),   # longer subjects: a 25-bit band
+    (150, 150, 15),  # 31-bit band
+    (70, 70, 8),
+    (500, 500, 8),   # long reads, many checkpoints
+    (72, 76, 4),
+    (40, 48, 4),     # q_len < 64: the only checkpoint is q_len
+    (96, 128, 6),    # h >> k: a 45-bit band
+    (80, 80, 16),    # 33-bit band: the hi word
+    (250, 250, 8),
+    (150, 160, 12),
+])
 def test_xla_matches_bitport(rng, m, n, k):
     q, s = make_case(rng, 2, m, 16, n, k)
     lo, hi, inj = pack.pack_banded(s, k, m)
@@ -40,12 +53,11 @@ def test_wide_band_hi_word(rng):
 
 
 def test_pallas_matches_bitport(rng):
+    # the k=8/150bp filter geometry through the engine (banded_xla on
+    # every platform)
     m, n, k = 150, 150, 8
-    q, s = make_case(rng, 2, m, 256, n, k)
-    lo, hi, inj = pack.pack_banded(s, k, m)
-    got = np.asarray(
-        banded_ops.banded(lo, hi, inj, q, q_len=m, s_len=n, k=k, interpret=True)
-    )
+    q, s = make_case(rng, 2, m, 3 * 128, n, k)
+    got = _engine_scores(q, s, k).astype(np.int32)
     want = np.array([banded_ref.banded_scores(qi, s, k) for qi in q])
     np.testing.assert_array_equal(got, want)
     assert (got == 127).any() and (got != 127).any()  # both outcomes exercised
@@ -60,111 +72,93 @@ def test_band_too_wide_raises(rng):
         banded_ops.banded_xla(lo, hi, inj, q, q_len=100, s_len=145, k=20)
 
 
+def _engine_scores(q, s, k):
+    """BandedEngine scores: transport unpack, device Peq packing and
+    banded_xla, the engine's one banded route."""
+    from bgsa_tpu.banded_pipeline import BandedEngine
+    from bgsa_tpu.pipeline import PipelineConfig
+
+    eng = BandedEngine(k, PipelineConfig())
+    return np.asarray(eng.scores(q, s.astype(np.uint8)))
+
+
 class TestBandedStream:
-    """banded_stream (funnel-shift Eq window) vs the behavioral reference."""
+    """Geometries with s_len >= q_len through the engine vs the behavioral
+    reference: narrow bands, wide ones (band 32..63 bits, the hi word) and
+    a full 64-bit band."""
 
     def _check(self, rng, Q, m, S, n, k):
-        from bgsa_tpu import pack
         from bgsa_tpu.banded_ref import banded_scores
-        from bgsa_tpu.ops import banded as b
 
         q = rng.integers(0, 4, size=(Q, m)).astype(np.int32)
         s = rng.integers(0, 4, size=(S, n))
         s[: S // 3, : min(m, n)] = q[0][: min(m, n)]  # some near-hits
-        stream = np.asarray(pack.pack_banded_stream_jax(s, k, m))
-        got = np.asarray(
-            b.banded_stream(stream, q, q_len=m, s_len=n, k=k, interpret=True)
-        )
         want = np.stack([banded_scores(qi, s, k) for qi in q])
-        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(_engine_scores(q, s, k), want)
 
     def test_equal_lengths(self, rng):
         self._check(rng, 2, 64, 256, 64, 6)
 
     def test_subject_longer(self, rng):
-        self._check(rng, 2, 64, 256, 80, 8)  # h > k: split streams
+        self._check(rng, 2, 64, 256, 80, 8)  # h > k: a 33-bit band
 
     def test_subject_shorter_rejected(self, rng):
-        # h < k: the preload exceeds the band; the stream view can't
-        # represent it (the engine falls back to banded() there).
-        import pytest
-
-        from bgsa_tpu import pack
-        from bgsa_tpu.ops import banded as b
-
+        # subjects shorter than query - k (h < 0) have no band: the engine
+        # rejects them loudly instead of scoring garbage
+        q = rng.integers(0, 4, size=(1, 80)).astype(np.int32)
         s = rng.integers(0, 4, size=(128, 64))
-        stream = pack.pack_banded_stream_jax(s, 8, 70)
-        with pytest.raises(ValueError, match="s_len >= q_len"):
-            b.banded_stream(np.asarray(stream), np.zeros((1, 70), np.int32),
-                            q_len=70, s_len=64, k=8, interpret=True)
+        with pytest.raises(ValueError, match="subject_len >= query_len"):
+            _engine_scores(q, s, 8)
 
     def test_engine_fallback_subject_shorter(self, rng, tmp_path):
-        # pipeline-level: shorter subjects route to the dual-stream kernel
-        from bgsa_tpu.banded_pipeline import BandedEngine
-        from bgsa_tpu.banded_ref import banded_scores
-        from bgsa_tpu.pipeline import PipelineConfig
-
-        q = rng.integers(0, 4, size=(2, 70)).astype(np.int32)
-        s = rng.integers(0, 4, size=(128, 64))
-        eng = BandedEngine(8, PipelineConfig(backend="pallas", interpret=True))
-        got = np.asarray(eng.scores(q, s.astype(np.uint8)))
-        want = np.stack([banded_scores(qi, s, 8) for qi in q])
-        np.testing.assert_array_equal(got, want)
+        # pipeline-level: shorter subjects route to banded_xla
+        self._check(rng, 2, 70, 128, 64, 8)
 
     def test_band_at_64_limit(self, rng):
-        # band_length = k + h + 1 = 64 exactly: band_down = 63, the one
-        # geometry where _stream_column leaves eq_hi unmasked
+        # band_length = k + h + 1 = 64 exactly: the full register
         m, k = 100, 31
         n = m + 1  # h = 32
         self._check(rng, 2, m, 256, n, k)
 
     def test_band_at_63(self, rng):
-        self._check(rng, 2, 100, 256, 100, 31)  # band_down = 62, masked
+        # band_down = 62: one bit below the full register
+        self._check(rng, 2, 100, 256, 100, 31)
 
     def test_tiny_threshold(self, rng):
         self._check(rng, 2, 150, 256, 150, 1)
 
     def test_block_exit_off_matches_on(self, rng):
-        # The block_exit=False A/B control (docs/PERF.md "What bounds the
-        # kernels" #8) must be outcome-neutral: same scores with the
-        # whole-block while_loop replaced by a plain fori_loop. Mixed data
-        # so some lanes die early and some survive to the end.
-        from bgsa_tpu import pack
+        # The early-exit latch is outcome-neutral: with mixed data (some
+        # lanes die early, some survive) the engine (device packing) equals
+        # banded_xla on the host packing and the reference.
         from bgsa_tpu.banded_ref import banded_scores
-        from bgsa_tpu.ops import banded as b
 
         Q, m, S, n, k = 2, 100, 256, 110, 8
         q = rng.integers(0, 4, size=(Q, m)).astype(np.int32)
         s = rng.integers(0, 4, size=(S, n))
         s[: S // 3, :m] = q[0]
-        stream = np.asarray(pack.pack_banded_stream_jax(s, k, m))
-        kw = dict(q_len=m, s_len=n, k=k, interpret=True)
-        on = np.asarray(b.banded_stream(stream, q, **kw))
-        off = np.asarray(b.banded_stream(stream, q, block_exit=False, **kw))
+        on = _engine_scores(q, s, k)
+        lo, hi, inj = pack.pack_banded(s, k, m)
+        off = np.asarray(banded_ops.banded_xla(lo, hi, inj, q, q_len=m,
+                                               s_len=n, k=k))
         np.testing.assert_array_equal(on, off)
         want = np.stack([banded_scores(qi, s, k) for qi in q])
         np.testing.assert_array_equal(on, want)
 
 
 class TestBandedStreamDual:
-    """banded_stream_dual (two funnel streams) covers s_len < q_len (h < k):
-    window = A | (B & band mask); parity vs the behavioral reference."""
+    """s_len < q_len (h < k) — the geometries the dual-stream kernel once
+    served — now run banded_xla through the engine; parity vs the
+    behavioral reference."""
 
-    def _check(self, rng, Q, m, S, n, k, unroll=None):
-        from bgsa_tpu import pack
+    def _check(self, rng, Q, m, S, n, k):
         from bgsa_tpu.banded_ref import banded_scores
-        from bgsa_tpu.ops import banded as b
 
         q = rng.integers(0, 4, size=(Q, m)).astype(np.int32)
         s = rng.integers(0, 4, size=(S, n))
         s[: S // 3, : min(m, n)] = q[0][: min(m, n)]  # some near-hits
-        streams = np.asarray(pack.pack_banded_streams_jax(s, k, m))
-        kw = dict(q_len=m, s_len=n, k=k, interpret=True)
-        if unroll:
-            kw["unroll"] = unroll
-        got = np.asarray(b.banded_stream_dual(streams, q, **kw))
         want = np.stack([banded_scores(qi, s, k) for qi in q])
-        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(_engine_scores(q, s, k), want)
 
     def test_subject_shorter(self, rng):
         self._check(rng, 2, 70, 256, 64, 8)  # h = 2 < k
@@ -176,72 +170,45 @@ class TestBandedStreamDual:
         self._check(rng, 2, 65, 256, 64, 6)  # h = 5
 
     def test_wide_band_hi_word(self, rng):
-        # band_down >= 32 exercises the B-hi funnel; 2k >= 32 the A-hi one
         self._check(rng, 2, 110, 256, 100, 24)  # h = 14, band_down = 38
 
     def test_small_k_small_band(self, rng):
         self._check(rng, 2, 66, 256, 64, 3)  # h = 1, 2k < 32
 
     def test_unrolled(self, rng):
-        self._check(rng, 2, 70, 256, 64, 8, unroll=4)
+        self._check(rng, 2, 70, 128, 64, 8)
 
     def test_unrolled_head_remainder(self, rng):
-        # q_len < start_batch*32 caps the dual head at q_len = 41, which is
-        # not a multiple of unroll=4 — the static remainder loop after the
-        # head fori_loop (banded.py's lone column2 tail) must run columns
-        # 40..40; no other geometry reaches it (a coverage sweep showed it
-        # unhit at every tuned unroll).
-        self._check(rng, 2, 41, 256, 30, 20, unroll=4)
+        self._check(rng, 2, 41, 128, 30, 20)  # q_len 41 < 2k + 1
 
     def test_matches_equal_length_stream(self, rng):
-        # h == k boundary: both kernels accept it; outputs must agree
-        from bgsa_tpu import pack
-        from bgsa_tpu.ops import banded as b
-
+        # h == k boundary: the engine and banded_xla on the host packing
+        # must agree
         m = n = 64
         k = 6
         q = rng.integers(0, 4, size=(2, m)).astype(np.int32)
         s = rng.integers(0, 4, size=(256, n))
-        one = np.asarray(b.banded_stream(
-            np.asarray(pack.pack_banded_stream_jax(s, k, m)), q,
-            q_len=m, s_len=n, k=k, interpret=True))
-        two = np.asarray(b.banded_stream_dual(
-            np.asarray(pack.pack_banded_streams_jax(s, k, m)), q,
-            q_len=m, s_len=n, k=k, interpret=True))
+        one = _engine_scores(q, s, k)
+        lo, hi, inj = pack.pack_banded(s, k, m)
+        two = np.asarray(banded_ops.banded_xla(lo, hi, inj, q, q_len=m,
+                                               s_len=n, k=k))
         np.testing.assert_array_equal(one, two)
 
     def test_widest_supported_k(self, rng):
-        # k=31, h=30: band_down = 61, 2k = 62 — the widest dual geometry
-        self._check(rng, 2, 100, 256, 99, 31)
+        # k=31, h=30: band_down = 61, 2k = 62
+        self._check(rng, 2, 100, 128, 99, 31)
 
     def test_preload_past_window_rejected(self, rng):
         # 2k > 63 with s_len >= k: the preload exceeds the 64-bit register
-        # (reference UB too) — rejected by _geometry before the dual check.
-        import pytest
-
-        from bgsa_tpu import pack
-        from bgsa_tpu.ops import banded as b
-
+        # (reference UB too) — rejected by _geometry.
         s = rng.integers(0, 4, size=(128, 99))
-        streams = np.asarray(pack.pack_banded_streams_jax(s, 32, 100))
         with pytest.raises(ValueError, match="preload"):
-            b.banded_stream_dual(streams, np.zeros((1, 100), np.int32),
-                                 q_len=100, s_len=99, k=32, interpret=True)
+            pack.pack_banded_jax(s, 32, 100)
 
     def test_dual_rejects_wide_k_small_subjects(self, rng):
-        # s_len < k keeps the preload in range, but the dual-stream
-        # superposition itself needs 2k <= 63 — its own check still fires.
-        import pytest
-
-        from bgsa_tpu import pack
-        from bgsa_tpu.ops import banded as b
-
-        s = rng.integers(0, 4, size=(128, 20))
-        streams = np.asarray(pack.pack_banded_streams_jax(s, 40, 55))
-        with pytest.raises(ValueError, match="2k <= 63"):
-            b.banded_stream_dual(streams, np.zeros((1, 55), np.int32),
-                                 q_len=55, s_len=20, k=40, interpret=True)
-
+        # s_len < k keeps the preload in range (bit k + s_len = 60):
+        # banded_xla serves the corner and matches the reference.
+        self._check(rng, 2, 55, 128, 20, 40)
 
 
 class TestPreloadOverflow:
@@ -275,24 +242,23 @@ class TestPreloadOverflow:
 
 
 def test_engine_routes_stream_and_peq_carry(rng):
-    """BandedEngine's pallas routing, engine-level: the s_len >= q_len fast
-    path (single funnel stream) and the 2k > 63, s_len < k corner (the one
-    geometry left on the Peq-carry kernel) — the suite exercised both
-    kernels directly but only the dual-stream route through the engine."""
+    """BandedEngine, engine-level: the s_len >= q_len geometry and the
+    2k > 63, s_len < k corner (the Peq-carry recurrence), both on
+    banded_xla."""
     from bgsa_tpu.banded_pipeline import BandedEngine
     from bgsa_tpu.banded_ref import banded_scores
     from bgsa_tpu.pipeline import PipelineConfig
 
-    cfg = PipelineConfig(backend="pallas", interpret=True)
+    cfg = PipelineConfig()
 
-    # s >= q: banded_stream
+    # s >= q
     q = rng.integers(0, 4, size=(2, 64)).astype(np.int32)
     s = rng.integers(0, 4, size=(128, 80))
     got = np.asarray(BandedEngine(6, cfg).scores(q, s.astype(np.uint8)))
     want = np.stack([banded_scores(qi, s, 6) for qi in q])
     np.testing.assert_array_equal(got, want)
 
-    # 2k > 63 with s < k: Peq-carry fallback (preload k+s = 60 fits)
+    # 2k > 63 with s < k: banded_xla (preload k+s = 60 fits)
     q = rng.integers(0, 4, size=(2, 50)).astype(np.int32)
     s = rng.integers(0, 4, size=(128, 20))
     got = np.asarray(BandedEngine(40, cfg).scores(q, s.astype(np.uint8)))

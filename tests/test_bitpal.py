@@ -63,12 +63,13 @@ def test_xla_semiglobal(rng):
 
 
 def test_pallas_matches_xla(rng):
+    # the unpacked representation runs bitpal_xla on every route
     M, I, G = 2, -3, -5
     q = rng.integers(0, 4, size=(2, 30)).astype(np.int32)
     s = rng.integers(0, 4, size=(256, 40))
     eq = pack.pack_eq(s, 31)
     got = np.asarray(
-        bitpal.bitpal(eq, q, match=M, mismatch=I, gap=G, read_len=40, interpret=True)
+        bitpal.bitpal_xla(eq, q, match=M, mismatch=I, gap=G, read_len=40)
     )
     np.testing.assert_array_equal(got, oracle(q, s, M, I, G))
 
@@ -79,9 +80,8 @@ def test_invalid_scheme():
 
 
 def test_pallas_semiglobal_interpret(rng):
-    """The Pallas kernel's semi-global score epilogue — previously exercised
-    only by the on-chip parity sweep (the suite tested semi-global on the
-    XLA twin alone), so a CPU run couldn't catch a regression in it."""
+    """The packed kernel's semi-global score epilogue (interpret mode) and
+    the unpacked route's (bitpal_xla), against the oracle."""
     from bgsa_tpu.oracle import align_scores_query_in_subject
     from bgsa_tpu.ops import bitpal_packed
 
@@ -92,12 +92,13 @@ def test_pallas_semiglobal_interpret(rng):
     want = np.stack(
         [align_scores_query_in_subject(qi, s, Scoring(M, I, G)) for qi in q]
     )
-    kw = dict(match=M, mismatch=I, gap=G, read_len=45, semi_global=True,
-              interpret=True)
+    kw = dict(match=M, mismatch=I, gap=G, read_len=45, semi_global=True)
     eq = pack.pack_eq(s, 31)
-    np.testing.assert_array_equal(np.asarray(bitpal.bitpal(eq, q, **kw)), want)
+    np.testing.assert_array_equal(np.asarray(bitpal.bitpal_xla(eq, q, **kw)),
+                                  want)
     np.testing.assert_array_equal(
-        np.asarray(bitpal_packed.bitpal_packed(eq, q, **kw)), want)
+        np.asarray(bitpal_packed.bitpal_packed(eq, q, interpret=True, **kw)),
+        want)
 
 
 @pytest.mark.parametrize("M,I,G", [(0, -1, -3), (1, 0, -2), (0, -1, -2)])
@@ -115,8 +116,6 @@ def test_adjacent_match_mismatch_schemes(rng, M, I, G):
     kw = dict(match=M, mismatch=I, gap=G, read_len=37)
     np.testing.assert_array_equal(
         np.asarray(bitpal.bitpal_xla(eq, q, **kw)), want)
-    np.testing.assert_array_equal(
-        np.asarray(bitpal.bitpal(eq, q, interpret=True, **kw)), want)
     params = bitpal.BitpalParams(M, I, G)
     assert bitpal_packed.packed_supported(params)
     np.testing.assert_array_equal(
@@ -164,10 +163,10 @@ def test_unpacked_carry_semiglobal_factor_and_pallas(rng):
     want = np.stack(
         [align_scores_query_in_subject(qi, s, Scoring(M, I, G)) for qi in q])
     np.testing.assert_array_equal(got, want)
-    # factor multiply + the Pallas kernel body (interpret) on the same words
+    # factor multiply on the same words (the unpacked route is bitpal_xla)
     got2 = np.asarray(
-        bitpal.bitpal(eq, q, match=M, mismatch=I, gap=G, read_len=45,
-                      word_bits=32, factor=2, interpret=True)
+        bitpal.bitpal_xla(eq, q, match=M, mismatch=I, gap=G, read_len=45,
+                          word_bits=32, factor=2)
     )
     np.testing.assert_array_equal(got2, oracle(q, s, 2 * M, 2 * I, 2 * G))
 
@@ -191,9 +190,9 @@ def test_engine_unpacked_carry_matches_default(rng, tmp_path):
         cfg = pl_mod.PipelineConfig(backend="xla", bitpal_packed=False,
                                     bitpal_carry=True)
         assert pl_mod.Engine(scheme, cfg).word_bits == 32
-        # bitpal_carry=None auto-picks the measured-best layout per route:
-        # 32-bit whenever the run lands on the unpacked kernel (+6.2%,
-        # scripts/exp_bitpal_unpacked_carry.py), 31-bit on the packed one
+        # bitpal_carry=None auto-picks the layout per route: 32-bit
+        # whenever the run lands on the unpacked network, 31-bit on the
+        # packed one
         auto = pl_mod.PipelineConfig(backend="xla", bitpal_packed=False)
         assert auto.bitpal_carry is None
         assert pl_mod.Engine(scheme, auto).word_bits == 32

@@ -1,10 +1,9 @@
-"""Grid-block sizing: awkward row counts must not break the Pallas wrappers.
+"""Subject blocks and kernel routing: awkward subject counts must not break
+the kernel wrappers, the word-count limits must route long subjects to the
+XLA twins, and every kernel must lower for the GPU's Triton route."""
 
-Regression: a 760k-subject bucket gives 5942 lane rows whose best divisor is
-2 — Mosaic requires sublane blocks of 8 (or the whole axis), so the wrappers
-pad the row axis instead of searching divisors.
-"""
-
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -14,47 +13,34 @@ from bgsa_tpu.schemes import Mode, Scoring
 
 
 def test_choose_rows():
-    assert blockutil.choose_rows(5942, 128) == (128, 6016)
-    assert blockutil.choose_rows(11, 8) == (8, 16)
-    assert blockutil.choose_rows(11, 128) == (11, 11)  # whole axis
-    assert blockutil.choose_rows(3, 128) == (3, 3)
-    assert blockutil.choose_rows(256, 100) == (96, 288)
-    r, padded = blockutil.choose_rows(5942, 128, 1)  # tiny VMEM budget
-    assert r == 8 and padded % 8 == 0
-    # a zero/negative limit (degenerate VMEM budget formula) clamps to the
-    # 8-sublane floor instead of emitting a 0-row block
-    assert blockutil.choose_rows(64, 0) == (8, 64)
+    # subject counts round up to whole blocks of BLOCK (a power of two)
+    B = blockutil.BLOCK
+    assert B & (B - 1) == 0
+    assert blockutil.padded_subjects(1) == B
+    assert blockutil.padded_subjects(B) == B
+    assert blockutil.padded_subjects(B + 1) == 2 * B
+    assert blockutil.padded_subjects(760576) == 760576  # a full 150 bp bucket
+    x = np.ones((5, 3, 200), np.uint32)
+    padded = np.asarray(blockutil.pad_subjects(x))
+    assert padded.shape == (5, 3, 2 * B)
+    assert (padded[..., 200:] == 0).all() and (padded[..., :200] == 1).all()
 
 
 def test_kernel_wrappers_reject_non_lane_multiple_subjects(rng):
-    """Every Pallas wrapper validates S % 128 == 0 up front — a ragged count
-    would otherwise reshape-fail (or worse, mis-tile) deep inside Mosaic."""
-    from bgsa_tpu.ops import banded, bitpal, bitpal_packed
-    from bgsa_tpu.ops import myers_pallas, myers_semiglobal
+    """Ragged subject counts are padded to a block and sliced back: every
+    wrapper returns exactly S scores per query."""
+    from bgsa_tpu.ops import bitpal_packed, myers_semiglobal
 
-    s = rng.integers(0, 4, size=(100, 40))  # not a multiple of 128
-    q = np.zeros((1, 40), np.int32)
+    s = rng.integers(0, 4, size=(100, 40))  # not a multiple of the block
+    q = rng.integers(0, 4, size=(1, 40)).astype(np.int32)
     eq31, eq32 = pack.pack_eq(s, 31), pack.pack_eq(s, 32)
-    kw = dict(read_len=40, interpret=True)
-    with pytest.raises(ValueError, match="multiple of 128"):
-        myers_pallas.myers_global(eq31, q, **kw)
-    with pytest.raises(ValueError, match="multiple of 128"):
-        myers_semiglobal.myers_semiglobal(eq32, q, **kw)
-    with pytest.raises(ValueError, match="multiple of 128"):
-        bitpal.bitpal(eq31, q, match=2, mismatch=-3, gap=-5, **kw)
-    with pytest.raises(ValueError, match="multiple of 128"):
-        bitpal_packed.bitpal_packed(eq31, q, match=2, mismatch=-3, gap=-5, **kw)
-    stream = np.asarray(pack.pack_banded_stream_jax(s, 5, 40))
-    with pytest.raises(ValueError, match="multiple of 128"):
-        banded.banded_stream(stream, q, q_len=40, s_len=40, k=5, interpret=True)
-    streams = np.asarray(pack.pack_banded_streams_jax(s, 5, 42))
-    with pytest.raises(ValueError, match="multiple of 128"):
-        banded.banded_stream_dual(streams, np.zeros((1, 42), np.int32),
-                                  q_len=42, s_len=40, k=5, interpret=True)
-    lo, hi, inj = (np.asarray(a) for a in pack.pack_banded_jax(s[:, :4], 5, 6))
-    with pytest.raises(ValueError, match="multiple of 128"):
-        banded.banded(lo, hi, inj, np.zeros((1, 6), np.int32),
-                      q_len=6, s_len=4, k=5, interpret=True)
+    got = np.asarray(myers_semiglobal.myers_semiglobal(
+        eq32, q, read_len=40, is_global=True, interpret=True))
+    assert got.shape == (1, 100)
+    np.testing.assert_array_equal(got[0], -oracle.edit_distances(q[0], s))
+    got = np.asarray(bitpal_packed.bitpal_packed(
+        eq31, q, match=2, mismatch=-3, gap=-5, read_len=40, interpret=True))
+    assert got.shape == (1, 100)
 
 
 def test_banded_geometry_rejects_short_subjects():
@@ -72,21 +58,20 @@ def test_banded_geometry_rejects_short_subjects():
 
 @pytest.fixture
 def awkward(rng):
-    # 11 lane rows (prime-ish), rows_per_block=8 -> one padded block
-    Q, m, S, n = 2, 40, 11 * 128, 37
+    # 11 * 128 + 3 subjects: several blocks, the last one padded
+    Q, m, S, n = 2, 40, 11 * 128 + 3, 37
     q = rng.integers(0, 4, size=(Q, m)).astype(np.int32)
     s = rng.integers(0, 4, size=(S, n))
     return q, s, m, n
 
 
 def test_myers_padded_blocks(awkward):
-    from bgsa_tpu.ops import myers_pallas
+    from bgsa_tpu.ops import myers_semiglobal
 
     q, s, m, n = awkward
-    eq = pack.pack_eq(s, 31)
-    got = np.asarray(
-        myers_pallas.myers_global(eq, q, read_len=n, rows_per_block=8, interpret=True)
-    )
+    eq = pack.pack_eq(s, 32)
+    got = np.asarray(myers_semiglobal.myers_semiglobal(
+        eq, q, read_len=n, is_global=True, interpret=True))
     want = np.stack([-oracle.edit_distances(qi, s) for qi in q])
     np.testing.assert_array_equal(got, want)
 
@@ -97,9 +82,7 @@ def test_semiglobal_padded_blocks(awkward):
     q, s, m, n = awkward
     eq = pack.pack_eq(s, 32)
     got = np.asarray(
-        myers_semiglobal.myers_semiglobal(
-            eq, q, read_len=n, rows_per_block=8, interpret=True
-        )
+        myers_semiglobal.myers_semiglobal(eq, q, read_len=n, interpret=True)
     )
     want = np.stack(
         [-oracle.edit_distances(qi, s, Mode.SEMI_GLOBAL) for qi in q]
@@ -108,34 +91,83 @@ def test_semiglobal_padded_blocks(awkward):
 
 
 def test_bitpal_padded_blocks(awkward):
-    from bgsa_tpu.ops import bitpal, bitpal_packed
+    from bgsa_tpu.ops import bitpal_packed
 
     q, s, m, n = awkward
     eq = pack.pack_eq(s, 31)
     kw = dict(match=2, mismatch=-3, gap=-5, read_len=n)
     want = np.stack([oracle.align_scores(qi, s, Scoring(2, -3, -5)) for qi in q])
-    got = np.asarray(bitpal.bitpal(eq, q, rows_per_block=8, interpret=True, **kw))
-    np.testing.assert_array_equal(got, want)
     got = np.asarray(
-        bitpal_packed.bitpal_packed(eq, q, rows_per_block=8, interpret=True, **kw)
+        bitpal_packed.bitpal_packed(eq, q, interpret=True, **kw)
     )
     np.testing.assert_array_equal(got, want)
 
 
 def test_banded_padded_blocks(rng):
+    # the banded engine (banded_xla on every platform) at a subject count
+    # that is not a multiple of the 128-subject pad unit
+    from bgsa_tpu.banded_pipeline import BandedEngine
     from bgsa_tpu.banded_ref import banded_scores
-    from bgsa_tpu.ops import banded
+    from bgsa_tpu.pipeline import PipelineConfig
 
-    Q, m, S, n, k = 2, 64, 11 * 128, 70, 6
+    Q, m, S, n, k = 2, 64, 2 * (5 * 128 + 7), 70, 6
     q = rng.integers(0, 4, size=(Q, m)).astype(np.int32)
     s = rng.integers(0, 4, size=(S, n))
     s[: S // 3, :m] = q[0]
-    init_lo, init_hi, inj = pack.pack_banded(s, k, m)
-    got = np.asarray(
-        banded.banded(
-            init_lo, init_hi, inj, q, q_len=m, s_len=n, k=k,
-            rows_per_block=8, interpret=True,
-        )
-    )
+    got = np.asarray(BandedEngine(k, PipelineConfig()).scores(
+        q, s.astype(np.uint8)))
+    assert got.shape == (Q, S) and got.dtype == np.int8
     want = np.stack([banded_scores(qi, s, k) for qi in q])
     np.testing.assert_array_equal(got, want)
+
+
+def _pallas_calls(fn, *specs):
+    """Number of Pallas custom calls in fn's CUDA lowering."""
+    text = jax.jit(fn).trace(*specs).lower(
+        lowering_platforms=("cuda",)).as_text()
+    return text.count("__gpu$xla.gpu.triton")
+
+
+@pytest.mark.parametrize("n,kernel", [(150, 1), (3008, 1), (3009, 0)])
+def test_myers_word_limit_routing(n, kernel):
+    """Subjects up to MAX_WORDS words lower to one Triton kernel; longer
+    ones route to the scan twin (no kernel at all)."""
+    from bgsa_tpu.ops import myers_semiglobal as sg
+
+    W = pack.word_count(n, 32)
+    assert (W <= sg.MAX_WORDS) == bool(kernel)
+    calls = _pallas_calls(
+        lambda e, q: sg.myers_semiglobal(e, q, read_len=n, is_global=True),
+        jax.ShapeDtypeStruct((5, W, 256), jnp.uint32),
+        jax.ShapeDtypeStruct((2, 8), jnp.int32))
+    assert calls == kernel
+
+
+@pytest.mark.parametrize("n,kernel", [(500, 1), (1023, 1), (1024, 0)])
+def test_bitpal_state_limit_routing(n, kernel):
+    """Packed BitPAl takes the kernel while planes x words <= MAX_STATE
+    (5 x 33 at (2,-3,-5)); larger states route to the XLA twin."""
+    from bgsa_tpu.ops import bitpal_packed as bp
+
+    W = pack.word_count(n, 31)
+    calls = _pallas_calls(
+        lambda e, q: bp.bitpal_packed(e, q, match=2, mismatch=-3, gap=-5,
+                                      read_len=n),
+        jax.ShapeDtypeStruct((5, W, 256), jnp.uint32),
+        jax.ShapeDtypeStruct((2, 4), jnp.int32))
+    assert calls == kernel
+
+
+def test_kernel_route_decision():
+    from bgsa_tpu.pipeline import kernel_route
+
+    assert kernel_route("auto", platform="gpu") == "pallas"
+    assert kernel_route("auto", platform="cuda") == "pallas"
+    assert kernel_route("auto", platform="cpu") == "xla"
+    assert kernel_route("auto", interpret=True, platform="cpu") == "pallas"
+    assert kernel_route("xla", platform="gpu") == "xla"
+    assert kernel_route("pallas", interpret=True, platform="cpu") == "pallas"
+    with pytest.raises(ValueError, match="needs a GPU"):
+        kernel_route("pallas", platform="cpu")
+    # this suite runs on the CPU: the default decision is the XLA route
+    assert kernel_route() == "xla"

@@ -57,10 +57,7 @@ def test_host_auto_from_jax_distributed(tmp_path, rng):
     with open(script, "w") as f:
         f.write(ROLE_SCRIPT)
     coord = f"127.0.0.1:{_free_port()}"
-    env = {**os.environ, "PYTHONPATH": REPO, "JAX_PLATFORMS": "cpu",
-           "BGSA_COMPILE_CACHE": "1",
-           "JAX_COMPILATION_CACHE_DIR": os.environ.get(
-               "BGSA_TEST_JAX_CACHE", "/tmp/bgsa_test_jax_cache")}
+    env = {**os.environ, "PYTHONPATH": REPO, "JAX_PLATFORMS": "cpu"}
     env.pop("BGSA_HOST_ID", None)
     env.pop("BGSA_NUM_HOSTS", None)
     shards = [str(tmp_path / f"sh{h}.bin") for h in range(2)]

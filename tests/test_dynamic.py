@@ -25,10 +25,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _spawn_role(args, extra_env):
     env = {**os.environ, "PYTHONPATH": "", "JAX_PLATFORMS": "cpu",
-           # reuse the suite's persistent compile cache in the role processes
-           "BGSA_COMPILE_CACHE": "1",
-           "JAX_COMPILATION_CACHE_DIR": os.environ.get(
-               "BGSA_TEST_JAX_CACHE", "/tmp/bgsa_test_jax_cache"),
            **extra_env}
     return subprocess.Popen(
         [sys.executable, "-m", "bgsa_tpu.cli", "align", *args],

@@ -1,4 +1,4 @@
-"""Local multi-chip (--shards) coverage: banded shard_map path + the
+"""Local multi-device (--shards) coverage: banded shard_map path + the
 sharded 2bit+sidecar transport (round-3 items; the reference's one-process-
 drives-N-devices layer is ``banded/BGSA_KNC/cal_all.c:134-771``)."""
 
@@ -13,7 +13,13 @@ from bgsa_tpu.io import result as result_io
 from bgsa_tpu.io import seqfile
 from bgsa_tpu.schemes import Mode, Scoring, normalize
 
-needs8 = pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
+
+@pytest.fixture
+def needs8():
+    """Skip unless 8 devices are visible — decided when the test runs, not
+    at import, so every test worker collects the same tests."""
+    if len(jax.devices()) < 8:
+        pytest.skip("needs 8 virtual devices")
 
 
 def _rare_n_codes(rng, S, L, n_count=60):
@@ -45,7 +51,7 @@ def test_sidecar_pack_sharded_rejects_ragged():
         pack.sidecar_pack(np.full((10, 8), 4, np.uint8), 4)
 
 
-@needs8
+@pytest.mark.usefixtures("needs8")
 def test_engine_sharded_sidecar_matches_single(rng):
     """An N-containing batch rides 2bitN under shard_map and scores equal to
     the single-device engine."""
@@ -63,7 +69,7 @@ def test_engine_sharded_sidecar_matches_single(rng):
     )
 
 
-@needs8
+@pytest.mark.usefixtures("needs8")
 @pytest.mark.parametrize("s_len", [40, 27])  # s_len >= and < q_len geometries
 def test_banded_engine_sharded_matches_single(rng, s_len):
     k, q_len = 4, 30
@@ -77,7 +83,7 @@ def test_banded_engine_sharded_matches_single(rng, s_len):
     )
 
 
-@needs8
+@pytest.mark.usefixtures("needs8")
 def test_cli_banded_shards_byte_equal(tmp_path, rng):
     """`bgsa-align -k ... --shards 4` (previously a silent single-chip no-op)
     now computes on the mesh and byte-equals the single-device run."""
@@ -104,7 +110,7 @@ def test_cli_banded_shards_byte_equal(tmp_path, rng):
     np.testing.assert_array_equal(got[:, :8], want)
 
 
-@needs8
+@pytest.mark.usefixtures("needs8")
 def test_run_banded_sharded_pipeline(tmp_path, rng):
     """Full banded pipeline with local_shards: multi-bucket, lane pads."""
     q = rng.integers(0, 4, size=(2, 28))
@@ -140,7 +146,7 @@ def test_shards_beyond_local_devices_rejected():
         BandedEngine(4, pl_mod.PipelineConfig(backend="xla", local_shards=n))
 
 
-@needs8
+@pytest.mark.usefixtures("needs8")
 def test_shards_zero_uses_all_local_devices(rng):
     """local_shards=0 (CLI --shards 0) builds the mesh over every local
     device and scores byte-identically to single-device."""

@@ -1,16 +1,20 @@
+"""Global unit-cost Myers on the kernel route: the full-word block kernel
+(ops/myers_semiglobal.py, is_global=True) in interpret mode vs the oracle."""
+
 import numpy as np
 import pytest
 
 from bgsa_tpu import pack
 from bgsa_tpu.oracle import edit_distances
-from bgsa_tpu.ops import myers_pallas
+from bgsa_tpu.ops import myers_semiglobal
 
 
-def run(queries, subjects, **kw):
-    eq = pack.pack_eq(subjects, 31)
+def run(queries, subjects):
+    eq = pack.pack_eq(subjects, 32)
     return np.asarray(
-        myers_pallas.myers_global(
-            eq, queries.astype(np.int32), read_len=subjects.shape[1], interpret=True, **kw
+        myers_semiglobal.myers_semiglobal(
+            eq, queries.astype(np.int32), read_len=subjects.shape[1],
+            is_global=True, interpret=True,
         )
     )
 
@@ -26,7 +30,7 @@ def test_matches_oracle(rng, n):
 
 def test_multiple_blocks(rng):
     q = rng.integers(0, 4, size=(1, 30)).astype(np.int32)
-    s = rng.integers(0, 4, size=(512, 45))
-    got = run(q, s, rows_per_block=2)  # 4 rows -> 2 blocks
+    s = rng.integers(0, 4, size=(3 * 128 + 5, 45))  # 4 blocks, last padded
+    got = run(q, s)
     want = -edit_distances(q[0], s)[None]
     np.testing.assert_array_equal(got, want)

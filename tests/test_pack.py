@@ -1,4 +1,5 @@
 import numpy as np
+import pytest
 
 from bgsa_tpu import pack
 
@@ -49,7 +50,13 @@ def test_nibble_roundtrip(rng):
         np.testing.assert_array_equal(back, codes)
 
 
-def test_pack_banded_jax_matches_numpy(rng):
+@pytest.mark.parametrize("S,L,k,m", [
+    (9, 70, 6, 64), (4, 40, 3, 50), (3, 33, 8, 33),
+    # the engine's packer at the filter geometry and the band's corners
+    (16, 150, 8, 150), (16, 158, 8, 150), (16, 64, 8, 70), (16, 20, 40, 55),
+    (16, 101, 31, 100),
+])
+def test_pack_banded_jax_matches_numpy(rng, S, L, k, m):
     import jax
 
     from bgsa_tpu import pack
@@ -57,13 +64,12 @@ def test_pack_banded_jax_matches_numpy(rng):
     # jitted as the pipeline calls it (eager op-by-op dispatch takes ~4x the
     # wall time for identical coverage)
     pb = jax.jit(pack.pack_banded_jax, static_argnums=(1, 2))
-    for S, L, k, m in ((9, 70, 6, 64), (4, 40, 3, 50), (3, 33, 8, 33)):
-        codes = rng.integers(0, 5, size=(S, L))
-        lo, hi, inj = pack.pack_banded(codes, k, m)
-        jlo, jhi, jinj = (np.asarray(x) for x in pb(codes, k, m))
-        np.testing.assert_array_equal(jlo, lo)
-        np.testing.assert_array_equal(jhi, hi)
-        np.testing.assert_array_equal(jinj, inj)
+    codes = rng.integers(0, 5, size=(S, L))
+    lo, hi, inj = pack.pack_banded(codes, k, m)
+    jlo, jhi, jinj = (np.asarray(x) for x in pb(codes, k, m))
+    np.testing.assert_array_equal(jlo, lo)
+    np.testing.assert_array_equal(jhi, hi)
+    np.testing.assert_array_equal(jinj, inj)
 
 
 def test_two_bit_roundtrip(rng):

@@ -124,17 +124,15 @@ def test_resume_after_interruption(tmp_path, rng):
 
 
 def test_bitpal_pipeline_pallas_interpret(tmp_path, rng):
-    """The Engine's Pallas BitPAl routes (packed, non-packed, and the
-    rows_per_block override) — the pipeline suite drove BitPAl only through
-    the XLA twins; the Pallas dispatch lines in Engine._build_step ran
-    solely on the chip."""
+    """The Engine's kernel-route BitPAl dispatch (packed: the Pallas
+    kernel in interpret mode; non-packed: bitpal_xla on every route)."""
     from bgsa_tpu.oracle import align_scores
 
     qp, sp, q, s = make_files(tmp_path, rng, Q=2, m=24, S=256, n=30)
     want = np.stack([align_scores(qi, s, Scoring(2, -3, -5)) for qi in q])
     for packed in (True, False):
         cfg = pl_mod.PipelineConfig(backend="pallas", interpret=True,
-                                    bitpal_packed=packed, rows_per_block=128)
+                                    bitpal_packed=packed)
         res = str(tmp_path / f"r{packed}.bin")
         pl_mod.run_alignment(qp, sp, res, Scoring(2, -3, -5), Mode.GLOBAL, cfg)
         out = str(tmp_path / f"c{packed}.txt")

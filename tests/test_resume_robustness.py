@@ -92,10 +92,7 @@ def test_resume_after_sigkill(tmp_path, rng, mode):
 
     part = str(tmp_path / "part.bin")
     env = {**os.environ, "PYTHONPATH": "", "JAX_PLATFORMS": "cpu",
-           "BGSA_TEST_BUCKET_SLEEP": "0.3",
-           "JAX_COMPILATION_CACHE_DIR": os.environ.get(
-               "BGSA_TEST_JAX_CACHE", "/tmp/bgsa_test_jax_cache"),
-           "BGSA_COMPILE_CACHE": "1"}
+           "BGSA_TEST_BUCKET_SLEEP": "0.3"}
     proc = subprocess.Popen(
         [sys.executable, "-m", "bgsa_tpu.cli", "align", "-q", qp, "-d", sp,
          "-f", part, "--backend", "xla", "--bucket-size", str(bucket_size),

@@ -1,6 +1,6 @@
 """Round-2 fixes: honest stats, input sniffing, long first lines, debug
-printers, and explicit-unroll interpret coverage (the unrolled fori body +
-Python tail loop used on TPU never ran under the CPU suite before)."""
+printers, and interpret-mode coverage of every kernel at an odd query
+length (q_len=25)."""
 
 import numpy as np
 import pytest
@@ -98,8 +98,9 @@ def test_debug_kprint_interpret(capfd):
     np.testing.assert_array_equal(np.asarray(out), np.asarray(x))
 
 
-# --- explicit unroll in interpret mode (ADVICE round 1): q_len=25 with
-# unroll=3 exercises the unrolled fori_loop body AND the tail loop ---
+# --- interpret mode at q_len=25: every kernel's column loop at an odd
+# length (the unrolled-column variants these tests once covered are gone;
+# the kernels loop one column at a time) ---
 
 
 def _codes(rng, shape):
@@ -107,12 +108,12 @@ def _codes(rng, shape):
 
 
 def test_myers_global_unroll_interpret(rng):
-    from bgsa_tpu.ops import myers_pallas
+    from bgsa_tpu.ops import myers_semiglobal
 
     q, s = _codes(rng, (2, 25)), _codes(rng, (128, 30))
-    eq = pack.pack_eq(s, 31)
-    got = np.asarray(myers_pallas.myers_global(
-        eq, q, read_len=30, interpret=True, unroll=3))
+    eq = pack.pack_eq(s, 32)
+    got = np.asarray(myers_semiglobal.myers_semiglobal(
+        eq, q, read_len=30, interpret=True, is_global=True))
     want = _matrix(q, s, Scoring(0, -1, -1))
     np.testing.assert_array_equal(got, want)
 
@@ -124,7 +125,7 @@ def test_myers_semiglobal_unroll_interpret(rng):
     eq = pack.pack_eq(s, 32)
     for is_global in (True, False):
         got = np.asarray(myers_semiglobal.myers_semiglobal(
-            eq, q, read_len=30, interpret=True, unroll=3, is_global=is_global))
+            eq, q, read_len=30, interpret=True, is_global=is_global))
         want = _matrix(q, s, Scoring(0, -1, -1),
                        Mode.GLOBAL if is_global else Mode.SEMI_GLOBAL)
         np.testing.assert_array_equal(got, want)
@@ -135,9 +136,8 @@ def test_bitpal_unroll_interpret(rng):
 
     q, s = _codes(rng, (2, 25)), _codes(rng, (128, 30))
     eq = pack.pack_eq(s, 32)
-    got = np.asarray(bitpal.bitpal(
-        eq, q, match=2, mismatch=-3, gap=-5, read_len=30,
-        interpret=True, unroll=3))
+    got = np.asarray(bitpal.bitpal_xla(  # the unpacked route: XLA only
+        eq, q, match=2, mismatch=-3, gap=-5, read_len=30, word_bits=32))
     want = _matrix(q, s, Scoring(2, -3, -5))
     np.testing.assert_array_equal(got, want)
 
@@ -149,22 +149,20 @@ def test_bitpal_packed_unroll_interpret(rng):
     eq = pack.pack_eq(s, 32)
     got = np.asarray(bitpal_packed.bitpal_packed(
         eq, q, match=2, mismatch=-3, gap=-5, read_len=30,
-        interpret=True, unroll=3))
+        interpret=True, word_bits=32))
     want = _matrix(q, s, Scoring(2, -3, -5))
     np.testing.assert_array_equal(got, want)
 
 
 def test_banded_stream_unroll_interpret(rng):
-    import jax
-
+    # the banded route is banded_xla on every platform (no kernel)
     from bgsa_tpu import banded_ref
-    from bgsa_tpu.ops import banded as banded_ops
+    from bgsa_tpu.ops import banded
 
     k, m, n = 6, 40, 44
     q, s = _codes(rng, (2, m)), _codes(rng, (128, n))
     s[:50, :m] = q[0]
-    stream = jax.jit(pack.pack_banded_stream_jax, static_argnums=(1, 2))(s, k, m)
-    got = np.asarray(banded_ops.banded_stream(
-        stream, q, q_len=m, s_len=n, k=k, interpret=True, unroll=4))
+    lo, hi, inj = pack.pack_banded_jax(s, k, m)
+    got = np.asarray(banded.banded_xla(lo, hi, inj, q, q_len=m, s_len=n, k=k))
     want = np.stack([banded_ref.banded_scores(qi, s, k) for qi in q])
     np.testing.assert_array_equal(got, want)

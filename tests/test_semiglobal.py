@@ -48,7 +48,7 @@ def test_pallas_semiglobal(rng, n):
 
 
 def test_fullword_global_pallas_matches_oracle(rng):
-    # The pipeline's TPU global path: full-word kernel with is_global=True,
+    # The pipeline's GPU global path: full-word kernel with is_global=True,
     # multi-word (subject longer than one 32-bit word).
     import jax.numpy as jnp
 
